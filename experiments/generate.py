@@ -3,7 +3,7 @@
 Mirrors /root/reference/experiments/{anisotropy,cartesian,ball,fdm_vs_asm,
 multigrid_cheby_degree,large-scaling,large-scaling-ras}.py: each subcommand
 writes input_NNNN.json configs for the solver CLI
-(``python -m dealii_asm_tpu input_*.json`` or ``experiments/run_sweep.py``).
+(``python -m dealii_asm input_*.json`` or ``experiments/run_sweep.py``).
 
 Usage: python experiments/generate.py <family> [dim] [refinements] [degree]
 """
@@ -244,7 +244,7 @@ _MFL_LADDER = [(2, 45), (3, 44), (4, 40), (5, 39), (6, 38), (7, 36)]
 
 def gen_mfl_degree(w, *_):
     """Kernel-throughput sweep over fe degree (matrix_free_loop_08_degree.py);
-    run with python -m dealii_asm_tpu.models.benchmark input_NNNN.json."""
+    run with python -m dealii_asm.models.benchmark input_NNNN.json."""
     labels = ["vmult", "symm-1-c", "symm-2-g-p-n", "symm-v-c"]
     for k, s in _MFL_LADDER:
         w.write(_mfl_base(k, s, labels))

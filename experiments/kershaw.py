@@ -2,7 +2,7 @@
 
 Writes input_NNNN.json configs sweeping solver × smoother preconditioner ×
 Chebyshev degree × polynomial kind × cycle type × p-sequence × eps for the
-main driver (python -m dealii_asm_tpu input_*.json).
+main driver (python -m dealii_asm input_*.json).
 """
 
 import copy

@@ -35,7 +35,7 @@ def main():
     M = jnp.asarray(rng.standard_normal((N, N)), jnp.float32)
     G = jnp.asarray(rng.standard_normal((320, N)), jnp.float32)
 
-    from dealii_asm_tpu.ops.tensorops import axis_matmul
+    from dealii_asm.ops.tensorops import axis_matmul
 
     bytes_grid = N**3 * 4 / 1e9
 
@@ -45,7 +45,7 @@ def main():
         print(f"   -> {2 * bytes_grid / t:.0f} GB/s eff, "
               f"{2 * N * N**3 / t / 1e12:.1f} TFLOP/s", flush=True)
 
-    # matmul-shaped reference: (N², N) @ (N, N) — pure MXU, minor-dim contraction
+    # matmul-shaped reference: (N², N) @ (N, N), minor-dim contraction
     u2 = u.reshape(N * N, N)
     t = timeit(jax.jit(lambda A: A @ M.T), u2, label="ref/(N²,N)@(N,N)")
     print(f"   -> {2 * N * N**3 / t / 1e12:.1f} TFLOP/s", flush=True)

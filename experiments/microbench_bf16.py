@@ -1,4 +1,4 @@
-"""Measure bf16-operand MXU variants of the flagship dense-global paths."""
+"""Measure bf16-operand variants of the flagship dense-global paths."""
 
 import os
 import sys
@@ -29,10 +29,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.fem.dofs import DofHandler
-    from dealii_asm_tpu.mesh.grid import StructuredMesh
-    from dealii_asm_tpu.ops.laplace import LaplaceOperator
-    from dealii_asm_tpu.precond.asm import ASMPreconditioner
+    from dealii_asm.fem.dofs import DofHandler
+    from dealii_asm.mesh.grid import StructuredMesh
+    from dealii_asm.ops.laplace import LaplaceOperator
+    from dealii_asm.precond.asm import ASMPreconditioner
 
     dtype = jnp.float32
     cells = 64
@@ -66,18 +66,18 @@ def main():
                           M.astype(jnp.bfloat16), T.astype(jnp.bfloat16),
                           preferred_element_type=jnp.float32)
 
-    import dealii_asm_tpu.ops.tensorops as tops
+    import dealii_asm.ops.tensorops as tops
 
     orig = tops.axis_matmul
     tops.axis_matmul = axmm_bf16
     try:
         f = jax.jit(fused)
-        t_bf16 = timeit(f, x, b, label="fused/bf16-mxu")
+        t_bf16 = timeit(f, x, b, label="fused/bf16")
         out = np.asarray(f(x, b))
     finally:
         tops.axis_matmul = orig
     rel = np.linalg.norm(out - ref) / np.linalg.norm(ref)
-    print(f"bf16-mxu rel error vs f32: {rel:.3e}")
+    print(f"bf16 rel error vs f32: {rel:.3e}")
     print(f"speedup: {t_f32 / t_bf16:.2f}x   "
           f"{n / t_bf16 / 1e9:.2f} GDoF/s (bf16) vs {n / t_f32 / 1e9:.2f} (f32)")
 

@@ -13,10 +13,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.fem.dofs import DofHandler
-    from dealii_asm_tpu.mesh.grid import StructuredMesh
-    from dealii_asm_tpu.ops.laplace import LaplaceOperator
-    from dealii_asm_tpu.precond.asm import ASMPreconditioner
+    from dealii_asm.fem.dofs import DofHandler
+    from dealii_asm.mesh.grid import StructuredMesh
+    from dealii_asm.ops.laplace import LaplaceOperator
+    from dealii_asm.precond.asm import ASMPreconditioner
 
     dtype = jnp.float32
     mesh = StructuredMesh(3, (64,) * 3)

@@ -45,12 +45,13 @@ def timeit(fn, label, n_rep=10, n_best=3):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from dealii_asm.utils.jitutils import enable_compilation_cache
+
+    enable_compilation_cache()
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.models.poisson import run_config
+    from dealii_asm.models.poisson import run_config
 
     cfg = {
         "type": "matrixfree", "dim": 3, "degree": 4, "n refinements": 6,
@@ -69,9 +70,9 @@ def main():
     }
 
     # piecewise anatomy first (shares nothing with run_config: own objects)
-    from dealii_asm_tpu.fem.dofs import DofHandler
-    from dealii_asm_tpu.mesh.grid import StructuredMesh
-    from dealii_asm_tpu.ops.laplace import LaplaceOperator
+    from dealii_asm.fem.dofs import DofHandler
+    from dealii_asm.mesh.grid import StructuredMesh
+    from dealii_asm.ops.laplace import LaplaceOperator
 
     t0 = time.perf_counter()
     mesh = StructuredMesh(3, (64,) * 3)
@@ -87,7 +88,7 @@ def main():
     timeit(op64.vmult_traceable, "f64 vmult (dd)")
     timeit(op64b.vmult_traceable, "f64 vmult (emulated banded)")
 
-    from dealii_asm_tpu.solvers.krylov import _dot_twostage
+    from dealii_asm.solvers.krylov import _dot_twostage
 
     def cg_vecops(x):  # one CG iteration's vector work minus vmult/precond
         Ap = x

@@ -52,14 +52,15 @@ def timeit(op, x0, label, n_rep=10, n_best=3):
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from dealii_asm.utils.jitutils import enable_compilation_cache
+
+    enable_compilation_cache()
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.fem.dofs import DofHandler
-    from dealii_asm_tpu.mesh.grid import StructuredMesh
-    from dealii_asm_tpu.mesh.transforms import kershaw_transform
-    from dealii_asm_tpu.ops.laplace import LaplaceOperator
+    from dealii_asm.fem.dofs import DofHandler
+    from dealii_asm.mesh.grid import StructuredMesh
+    from dealii_asm.mesh.transforms import kershaw_transform
+    from dealii_asm.ops.laplace import LaplaceOperator
 
     cells = int(os.environ.get("CELLS", 48))
     degree = 4

@@ -35,10 +35,10 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.fem.dofs import DofHandler
-    from dealii_asm_tpu.mesh.grid import StructuredMesh
-    from dealii_asm_tpu.ops.laplace import LaplaceOperator
-    from dealii_asm_tpu.precond.asm import ASMPreconditioner
+    from dealii_asm.fem.dofs import DofHandler
+    from dealii_asm.mesh.grid import StructuredMesh
+    from dealii_asm.ops.laplace import LaplaceOperator
+    from dealii_asm.precond.asm import ASMPreconditioner
 
     dtype = jnp.float32
     cells = 64
@@ -63,7 +63,7 @@ def main():
     results["vmult/global-dense"] = timeit(f, x, label="vmult/global-dense")
 
     # 2. windowed separable (percoord window layout, shared small mats)
-    from dealii_asm_tpu.ops.lattice import (
+    from dealii_asm.ops.lattice import (
         apply_axis_shared,
         cells_to_grid_sliced,
         grid_to_cells_sliced,

@@ -16,12 +16,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from dealii_asm.utils.jitutils import enable_compilation_cache
+
+    enable_compilation_cache()
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.models.poisson import (
+    from dealii_asm.models.poisson import (
         _build_multigrid, _make_dofs, _make_operator, make_mesh_family,
     )
 

@@ -1,11 +1,9 @@
 """Per-component anatomy of the unstructured (ball) solve iteration.
 
-VERDICT r4 missing #1: ball L=5 runs 4.32 s/iteration and the f64 outer
-matvec (`laplace_general.apply_local_lanes_dd`, the XLA dd composition) is
-blamed.  Before building the fused Pallas twin, pin WHERE the time goes:
+Pins where the time of one outer iteration goes:
 
     gather        u0[cell_dofs_T]                  (L, C) XLA gather
-    local-dd      apply_local_lanes_dd on gathered W (pure elementwise chain)
+    local         apply_local_lanes on gathered W  (pure elementwise chain)
     scatter       zeros.at[idx].add(v)             XLA scatter-add
     vmult         the production composition (all of the above)
     vmult-f32     the f32 single-pass twin (what MG levels run)
@@ -13,7 +11,7 @@ blamed.  Before building the fused Pallas twin, pin WHERE the time goes:
     cg-it         one outer CG iteration (vmult + precon + vector ops)
 
 Protocol: passed-args jits, lax.scan chaining (REP steps), scalar-fetch
-forced sync, best-of-3 — the probe_smoother_stages.py conventions.
+sync, best-of-3.
 
     python -m experiments.probe_ball_anatomy [n_ref] [sections...]
 """
@@ -50,11 +48,11 @@ def main():
     sections = set(a for a in args if not a.isdigit()) or {
         "gather", "local", "scatter", "vmult", "vmultf32", "precon", "cgit"}
 
-    from dealii_asm_tpu.models.poisson import (_build_multigrid, _make_dofs,
+    from dealii_asm.models.poisson import (_build_multigrid, _make_dofs,
                                                _make_operator,
                                                make_mesh_family)
-    from dealii_asm_tpu.precond.adapter import PrecisionAdapter
-    from dealii_asm_tpu.utils.config import get_child
+    from dealii_asm.precond.adapter import PrecisionAdapter
+    from dealii_asm.utils.config import get_child
 
     params = json.load(open("experiments/e2e_ball_q4.json"))
     params["n refinements"] = n_ref
@@ -69,10 +67,9 @@ def main():
     u = jax.random.normal(key, (n,), jnp.float64)
     REP = 10
 
-    from dealii_asm_tpu.ops.ddmath import dd_from_f64
+    from dealii_asm.ops.ddmath import dd_from_f64
 
     idxT = op.cell_dofs_T
-    cdd = op.coeff6_dd
 
     if "gather" in sections:
         @jax.jit
@@ -88,42 +85,21 @@ def main():
               lambda o: float(o[0, 0]))
 
     if "local" in sections:
-        uh, ul = dd_from_f64(u)
-        kern = getattr(op, "_lanes_dd_pallas", None)
-        if kern is not None:
-            # fused Pallas local apply on pre-gathered kernel-layout blocks
-            Wh = jax.device_put(uh[kern.gather_tab])
-            Wl = jax.device_put(ul[kern.gather_tab])
+        W = jax.device_put(u[idxT])
 
-            @jax.jit
-            def l_chain(Wh, Wl, *cf):
-                def body(c, _):
-                    vh, vl = kern._pallas(c[0], c[1], *cf)
-                    return (vh, vl), None
-                out, _ = jax.lax.scan(body, (Wh, Wl), None, length=REP)
-                return out[0]
-            timed("local-pallas", lambda: l_chain(Wh, Wl, *kern.coeff_tabs),
-                  n, REP, lambda o: float(o[0, 0]))
-        if cdd is not None:
-            Wh = jax.device_put(uh[idxT])
-            Wl = jax.device_put(ul[idxT])
-
-            @jax.jit
-            def l_chain(Wh, Wl, *cf):
-                n_sym = 6
-                c6dd = [tuple(cf[4 * k: 4 * k + 4]) for k in range(n_sym)]
-                def body(c, _):
-                    vh, vl = op.apply_local_lanes_dd(c[0], c[1], c6dd)
-                    return (vh, vl), None
-                out, _ = jax.lax.scan(body, (Wh, Wl), None, length=REP)
-                return out[0]
-            timed("local-dd", lambda: l_chain(Wh, Wl, *cdd), n, REP,
-                  lambda o: float(o[0, 0]))
+        @jax.jit
+        def l_chain(W, *cf):
+            def body(c, _):
+                return op.apply_local_lanes(c, cf), None
+            out, _ = jax.lax.scan(body, W, None, length=REP)
+            return out
+        timed("local", lambda: l_chain(W, *op.coeff6), n, REP,
+              lambda o: float(o[0, 0]))
 
     if "scatter" in sections:
         v0 = jax.device_put(np.random.randn(*idxT.shape).astype(np.float32))
 
-        from dealii_asm_tpu.ops.scatter import TransposeScatter
+        from dealii_asm.ops.scatter import TransposeScatter
 
         tscat = TransposeScatter(np.asarray(op.dofs.cell_dofs).T, n)
         for variant in ("full", "ranked", "2d"):

@@ -30,10 +30,10 @@ def main():
     nref = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     degree = int(sys.argv[2]) if len(sys.argv) > 2 else 4
 
-    from dealii_asm_tpu.mesh.unstructured import hyper_ball_balanced
-    from dealii_asm_tpu.fem.general_dofs import GeneralDofHandler
-    from dealii_asm_tpu.ops.laplace_general import GeneralLaplaceOperator
-    from dealii_asm_tpu.precond.asm_general import GeneralASMPreconditioner
+    from dealii_asm.mesh.unstructured import hyper_ball_balanced
+    from dealii_asm.fem.general_dofs import GeneralDofHandler
+    from dealii_asm.ops.laplace_general import GeneralLaplaceOperator
+    from dealii_asm.precond.asm_general import GeneralASMPreconditioner
 
     t0 = time.perf_counter()
     mesh = hyper_ball_balanced(3)
@@ -51,7 +51,7 @@ def main():
                                    dtype=jnp.float32)
     t0 = tick("GeneralASM ov1", t0)
 
-    from dealii_asm_tpu.fem.general_patches import general_vertex_patch_indices
+    from dealii_asm.fem.general_patches import general_vertex_patch_indices
 
     idx, ext = general_vertex_patch_indices(dofs)
     t0 = tick(f"vertex patch indices ({idx.shape})", t0)

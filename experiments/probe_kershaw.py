@@ -1,7 +1,7 @@
 """Staged fault isolation for the 7.2M Kershaw E2E (data.pdf Table 13).
 
 Runs each solve component as its own bounded dispatch with block_until_ready
-and a stage marker, so a TPU worker fault names its component instead of
+and a stage marker, so a device fault names its component instead of
 killing a monolithic CG while_loop.  Usage:
 
     python -m experiments.probe_kershaw [n_refinements]
@@ -18,11 +18,11 @@ jax.config.update("jax_enable_x64", True)  # match the CLI (__main__.py)
 import jax.numpy as jnp
 import numpy as np
 
-from dealii_asm_tpu.models.poisson import (_build_multigrid, _make_dofs,
+from dealii_asm.models.poisson import (_build_multigrid, _make_dofs,
                                            _make_operator, make_mesh_family)
-from dealii_asm_tpu.fem.functions import make_rhs_and_dbc
-from dealii_asm_tpu.precond.adapter import PrecisionAdapter
-from dealii_asm_tpu.utils.config import get_child
+from dealii_asm.fem.functions import make_rhs_and_dbc
+from dealii_asm.precond.adapter import PrecisionAdapter
+from dealii_asm.utils.config import get_child
 
 
 def stage(name):
@@ -69,7 +69,7 @@ def main():
     print("vcycle warm", time.perf_counter() - t0, flush=True)
 
     stage("CG 3 iterations (device loop)")
-    from dealii_asm_tpu.solvers.krylov import solve as krylov_solve
+    from dealii_asm.solvers.krylov import solve as krylov_solve
 
     r = krylov_solve("CG", op.vmult, b, M=precon.vmult, max_iterations=3,
                      abs_tolerance=1e-10, rel_tolerance=1e-5)

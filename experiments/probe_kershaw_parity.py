@@ -31,7 +31,7 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-from dealii_asm_tpu.solvers import chebyshev as _cheb
+from dealii_asm.solvers import chebyshev as _cheb
 
 _ORIG_ESTIMATE = _cheb.estimate_eigenvalues
 
@@ -65,7 +65,7 @@ def _patched(mode):
 
 
 def run_variant(params, name):
-    from dealii_asm_tpu.models.poisson import run_config
+    from dealii_asm.models.poisson import run_config
 
     p = copy.deepcopy(params)
     mode = None
@@ -101,7 +101,7 @@ def run_variant(params, name):
 
     import jax as _jax
 
-    from dealii_asm_tpu.solvers import krylov as _krylov
+    from dealii_asm.solvers import krylov as _krylov
 
     _krylov._CG_DD_CACHE.clear()
     _jax.clear_caches()

@@ -15,8 +15,8 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from dealii_asm_tpu.models.poisson import _build_multigrid, make_mesh_family
-from dealii_asm_tpu.utils.config import get_child
+from dealii_asm.models.poisson import _build_multigrid, make_mesh_family
+from dealii_asm.utils.config import get_child
 
 
 def timeit(label, fn, *args, n=5):
@@ -75,7 +75,7 @@ def main():
 
     # coarse function may itself be an inner Multigrid
     inner = getattr(mg.coarse_solver, "__self__", None)
-    from dealii_asm_tpu.precond.multigrid import Multigrid
+    from dealii_asm.precond.multigrid import Multigrid
 
     if isinstance(inner, Multigrid):
         print("[inner h-MG]")

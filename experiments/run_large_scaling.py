@@ -1,12 +1,11 @@
-"""Execute the large-scaling ladder single-chip to the HBM limit (VERDICT r4
-task #4; matches /root/reference/experiments/large-scaling.py:32 — anisotropy
+"""Execute the large-scaling ladder on one device up to its memory limit
+(matches /root/reference/experiments/large-scaling.py:32 — anisotropy
 stretch 50, hp-MG, refinements 0..11, smoothers diag/fdm1/fdm2/fdmv).
 
-One v5e chip (16 GB HBM) admits refinement 7 = 128^3 cells = 135,005,697 DoFs
-(Q4).  Refinement 8 (1.07B DoFs) needs the multi-device path.  The outer
-Krylov runs f64 (double-single emulated) exactly like the E2E gates; pass
---f32 to run the outer in f32 instead (halves vector memory; the scaling
-shape is the point here, not the parity contract).
+Refinement 7 is 128^3 cells = 135,005,697 DoFs (Q4); refinement 8 (1.07B
+DoFs) needs the multi-device path.  The outer Krylov runs f64 exactly like
+the E2E gates; pass --f32 to run the outer in f32 instead (halves vector
+memory; the scaling shape is the point here, not the parity contract).
 
     python -m experiments.run_large_scaling [--f32] [--best-of N] [SPEC...]
 
@@ -56,7 +55,7 @@ def main():
 
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.models.poisson import run_config
+    from dealii_asm.models.poisson import run_config
 
     dtype = jnp.float32 if f32 else jnp.float64
     for name, r in plan:

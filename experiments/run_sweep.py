@@ -41,8 +41,8 @@ def main():
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
-    from dealii_asm_tpu.models.poisson import run_config
-    from dealii_asm_tpu.utils.table import ConvergenceTable
+    from dealii_asm.models.poisson import run_config
+    from dealii_asm.utils.table import ConvergenceTable
 
     rows = []
     for fn in files:

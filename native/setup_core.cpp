@@ -1,7 +1,7 @@
 // Native setup core — the host-side "graph builder" of the framework.
 //
 // The reference's entire runtime is C++ (header-only deal.II layer); here the
-// TPU compute path is JAX/XLA, and this library provides the native setup
+// device compute path is JAX/XLA, and this library provides the native setup
 // layer that builds the operator/smoother factor tables the device kernels
 // consume: global 1D assembly, overlap-aware FDM patch matrices (the
 // semantics of /root/reference/include/tensor_product_matrix_creator.h and
@@ -139,7 +139,7 @@ void assemble_global_1d(const double *Mref, const double *Kref, int p,
 }
 
 // Overlap-aware 1D FDM patch matrices (m = p-1+2*overlap), bc: 0=dirichlet,
-// 1=neumann, 2=internal.  Mirrors dealii_asm_tpu/precond/fdm.py semantics.
+// 1=neumann, 2=internal.  Mirrors dealii_asm/precond/fdm.py semantics.
 void fdm_1d_matrices(const double *Mref, const double *Kref, int p,
                      int overlap, const double *extents, int bc_left,
                      int bc_right, double *Mw, double *Kw) {

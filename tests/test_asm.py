@@ -2,13 +2,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dealii_asm_tpu.fem.assemble import assemble_laplace
-from dealii_asm_tpu.fem.dofs import DofHandler
-from dealii_asm_tpu.fem.patches import element_patch_indices, vertex_patch_indices
-from dealii_asm_tpu.mesh.grid import StructuredMesh
-from dealii_asm_tpu.ops.laplace import LaplaceOperator
-from dealii_asm_tpu.precond.asm import ASMPreconditioner
-from dealii_asm_tpu.precond.fdm import fdm_1d_matrices
+from dealii_asm.fem.assemble import assemble_laplace
+from dealii_asm.fem.dofs import DofHandler
+from dealii_asm.fem.patches import element_patch_indices, vertex_patch_indices
+from dealii_asm.mesh.grid import StructuredMesh
+from dealii_asm.ops.laplace import LaplaceOperator
+from dealii_asm.precond.asm import ASMPreconditioner
+from dealii_asm.precond.fdm import fdm_1d_matrices
 
 
 def test_patch_indices_overlap1_equal_cell_dofs():
@@ -96,7 +96,7 @@ def test_asm_single_cell_is_exact_inverse():
 
 @pytest.mark.parametrize("weighting", ["none", "pre", "post", "symm", "ras"])
 def test_asm_weighting_modes_run_and_precondition(weighting):
-    from dealii_asm_tpu.solvers.krylov import gmres, ReductionControl
+    from dealii_asm.solvers.krylov import gmres, ReductionControl
     mesh = StructuredMesh(2, (4, 4))
     dofs = DofHandler(mesh, 3)
     op = LaplaceOperator(dofs)
@@ -139,7 +139,7 @@ def test_vertex_patch_indices_and_asm():
     idx, anchors = vertex_patch_indices(dofs)
     assert idx.shape == (9, (2 * 3 - 1) ** 2)  # 3x3 interior vertices
     asm = ASMPreconditioner(dofs, weighting_type="symm", patch_type="vertex")
-    from dealii_asm_tpu.solvers.krylov import cg, ReductionControl
+    from dealii_asm.solvers.krylov import cg, ReductionControl
     op = LaplaceOperator(dofs)
     b = op.assemble_rhs(lambda p: np.ones(p.shape[0]))
     res = cg(op.vmult, b, M=asm.vmult, control=ReductionControl(200, 1e-12, 1e-8))
@@ -148,9 +148,7 @@ def test_vertex_patch_indices_and_asm():
 
 # -- lane-major (patches-on-lanes) FDM path -----------------------------------
 # The scalable apply for non-factoring geometries (Kershaw & friends): local
-# tensors travel as (L, P) with the huge patch axis on the TPU lane dimension.
-# Patch-major (P, m, m, m) tensors tile each trailing (m, m) as (8, 128) — a
-# 41x HBM inflation at m=5 that OOM'd the 7.2M-DoF Kershaw solve.
+# tensors travel as (L, P) with the huge patch axis last (minor).
 
 def _gather_reference_apply(asm, x):
     """Old patch-major gather apply (the slow oracle)."""
@@ -175,7 +173,7 @@ def _gather_reference_apply(asm, x):
 def test_lanes_fdm_apply_matches_gather_oracle(ptype, ov, wt):
     import jax
 
-    from dealii_asm_tpu.mesh.transforms import kershaw_transform
+    from dealii_asm.mesh.transforms import kershaw_transform
 
     mesh = StructuredMesh(3, (4, 4, 4), transform=kershaw_transform(0.3, 0.3))
     dofs = DofHandler(mesh, 3)
@@ -202,7 +200,7 @@ def test_batched_fdm_builders_match_scalar():
     import numpy as np
     import scipy.linalg as sla
 
-    from dealii_asm_tpu.precond.fdm import (
+    from dealii_asm.precond.fdm import (
         batched_generalized_eigh,
         fdm_1d_matrices,
         fdm_1d_matrices_batched,
@@ -250,7 +248,7 @@ def test_mesh_cache_invalidation_on_mutation():
     _fix_cell_orientations)."""
     import numpy as np
 
-    from dealii_asm_tpu.mesh.unstructured import hyper_ball_balanced
+    from dealii_asm.mesh.unstructured import hyper_ball_balanced
 
     mesh = hyper_ball_balanced(3)
     sp1 = mesh.cell_mapping_points(2)
@@ -265,10 +263,10 @@ def test_mesh_cache_invalidation_on_mutation():
 
 def test_gather_lanes_chunked_matches_unchunked():
     """Chunked vertex gather apply (deformed meshes at scale) == one-chunk."""
-    from dealii_asm_tpu.mesh.grid import StructuredMesh
-    from dealii_asm_tpu.mesh.transforms import kershaw_transform
-    from dealii_asm_tpu.fem.dofs import DofHandler
-    from dealii_asm_tpu.precond.asm import ASMPreconditioner
+    from dealii_asm.mesh.grid import StructuredMesh
+    from dealii_asm.mesh.transforms import kershaw_transform
+    from dealii_asm.fem.dofs import DofHandler
+    from dealii_asm.precond.asm import ASMPreconditioner
 
     mesh = StructuredMesh(3, (6, 6, 6), transform=kershaw_transform(0.3, 0.3))
     dofs = DofHandler(mesh, 2)

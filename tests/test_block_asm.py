@@ -2,11 +2,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dealii_asm_tpu.fem.dofs import DofHandler
-from dealii_asm_tpu.mesh.grid import StructuredMesh
-from dealii_asm_tpu.ops.laplace import LaplaceOperator
-from dealii_asm_tpu.precond.asm import ASMPreconditioner
-from dealii_asm_tpu.precond.block_asm import (
+from dealii_asm.fem.dofs import DofHandler
+from dealii_asm.mesh.grid import StructuredMesh
+from dealii_asm.ops.laplace import LaplaceOperator
+from dealii_asm.precond.asm import ASMPreconditioner
+from dealii_asm.precond.block_asm import (
     BlockTriDiagonal,
     Restrictor,
     create_block_preconditioner,
@@ -72,7 +72,7 @@ def test_matrix_approximation_spectrally_equivalent(approx):
     """eigenvalues_01 analog (/root/reference/eigenvalues_01.cc): the iso-Q1
     block approximations give a spectrally-equivalent preconditioner."""
     import scipy.linalg as sla
-    from dealii_asm_tpu.fem.assemble import assemble_laplace
+    from dealii_asm.fem.assemble import assemble_laplace
 
     dofs, op = _problem(p=4, cells=(3, 3))
     blk = create_block_preconditioner(
@@ -103,7 +103,7 @@ class TestSubMeshReassembly:
     def test_submesh_equals_extraction(self):
         # all coupling cells of an overlap<=p window lie inside the 3^dim
         # patch, so sub-mesh assembly must reproduce global-matrix extraction
-        from dealii_asm_tpu.precond.block_asm import create_block_preconditioner
+        from dealii_asm.precond.block_asm import create_block_preconditioner
 
         mesh = StructuredMesh(3, (4, 4, 4))
         dofs = DofHandler(mesh, 3)
@@ -122,9 +122,9 @@ class TestSubMeshReassembly:
 
     def test_submesh_deformed_mesh(self):
         # on a deformed mesh the sub-meshes carry the transform exactly
-        from dealii_asm_tpu.mesh.transforms import kershaw_transform
-        from dealii_asm_tpu.precond.block_asm import create_block_preconditioner
-        from dealii_asm_tpu.solvers.krylov import solve as ksolve
+        from dealii_asm.mesh.transforms import kershaw_transform
+        from dealii_asm.precond.block_asm import create_block_preconditioner
+        from dealii_asm.solvers.krylov import solve as ksolve
 
         mesh = StructuredMesh(3, (3, 3, 3), transform=kershaw_transform(0.6, 0.6))
         dofs = DofHandler(mesh, 2)
@@ -138,7 +138,7 @@ class TestSubMeshReassembly:
         assert r.converged and r.n_iterations < 60
 
     def test_create_mesh_from_cells(self):
-        from dealii_asm_tpu.mesh.grid import create_mesh_from_cells
+        from dealii_asm.mesh.grid import create_mesh_from_cells
 
         mesh = StructuredMesh(3, (4, 4, 4))
         sub = create_mesh_from_cells(mesh, [0, 1, 4, 5])

@@ -7,10 +7,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dealii_asm_tpu.fem.dofs import DofHandler
-from dealii_asm_tpu.mesh.grid import StructuredMesh
-from dealii_asm_tpu.ops.laplace import LaplaceOperator
-from dealii_asm_tpu.solvers.krylov import ReductionControl, idr, richardson
+from dealii_asm.fem.dofs import DofHandler
+from dealii_asm.mesh.grid import StructuredMesh
+from dealii_asm.ops.laplace import LaplaceOperator
+from dealii_asm.solvers.krylov import ReductionControl, idr, richardson
 
 
 def _spd(n=50, seed=0):
@@ -36,8 +36,8 @@ def test_richardson_solves_with_jacobi():
 
 
 def test_domain_preconditioner():
-    from dealii_asm_tpu.precond.domain import DomainPreconditioner
-    from dealii_asm_tpu.solvers.krylov import cg
+    from dealii_asm.precond.domain import DomainPreconditioner
+    from dealii_asm.solvers.krylov import cg
 
     mesh = StructuredMesh(2, (8, 8))
     dofs = DofHandler(mesh, 2)
@@ -55,8 +55,8 @@ def test_domain_preconditioner():
 
 
 def test_vertex_all_block_asm():
-    from dealii_asm_tpu.precond.block_asm import create_block_preconditioner
-    from dealii_asm_tpu.solvers.krylov import gmres
+    from dealii_asm.precond.block_asm import create_block_preconditioner
+    from dealii_asm.solvers.krylov import gmres
 
     mesh = StructuredMesh(2, (4, 4))
     dofs = DofHandler(mesh, 3)
@@ -70,8 +70,8 @@ def test_vertex_all_block_asm():
 
 
 def test_precision_adapter():
-    from dealii_asm_tpu.precond.adapter import PrecisionAdapter
-    from dealii_asm_tpu.precond.diagonal import DiagonalPreconditioner
+    from dealii_asm.precond.adapter import PrecisionAdapter
+    from dealii_asm.precond.diagonal import DiagonalPreconditioner
 
     mesh = StructuredMesh(2, (4, 4))
     dofs = DofHandler(mesh, 2)
@@ -87,7 +87,7 @@ def test_precision_adapter():
 
 
 def test_vtu_output(tmp_path):
-    from dealii_asm_tpu.utils.vtu import write_vtu
+    from dealii_asm.utils.vtu import write_vtu
 
     mesh = StructuredMesh(2, (3, 3))
     dofs = DofHandler(mesh, 2)
@@ -101,7 +101,7 @@ def test_vtu_output(tmp_path):
 def test_aspect_ratio():
     mesh = StructuredMesh(2, (4, 4), lengths=(1.0, 3.0))
     assert abs(mesh.max_aspect_ratio() - 3.0) < 1e-12
-    from dealii_asm_tpu.mesh.transforms import kershaw_transform
+    from dealii_asm.mesh.transforms import kershaw_transform
 
     meshk = StructuredMesh(3, (6, 2, 2), transform=kershaw_transform(0.3, 0.3))
     assert meshk.max_aspect_ratio() > 1.5

@@ -8,7 +8,7 @@ import pytest
 
 
 def test_throughput_benchmark_protocol():
-    from dealii_asm_tpu.models.benchmark import run_benchmark
+    from dealii_asm.models.benchmark import run_benchmark
 
     out = io.StringIO()
     run_benchmark({
@@ -25,7 +25,7 @@ def test_throughput_benchmark_protocol():
 
 
 def test_solver_anatomy_protocol():
-    from dealii_asm_tpu.models.solver_bench import run_solver_anatomy
+    from dealii_asm.models.solver_bench import run_solver_anatomy
 
     out = io.StringIO()
     run_solver_anatomy({"dim": 2, "n subdivision": 3, "fe degree": 2,
@@ -35,7 +35,7 @@ def test_solver_anatomy_protocol():
 
 
 def test_transfer_bench_protocol():
-    from dealii_asm_tpu.models.solver_bench import run_transfer_bench
+    from dealii_asm.models.solver_bench import run_transfer_bench
 
     out = io.StringIO()
     run_transfer_bench({"dim": 2, "n subdivision": 3, "fe degree": 4,
@@ -45,7 +45,7 @@ def test_transfer_bench_protocol():
 
 
 def test_power_kernel_protocol():
-    from dealii_asm_tpu.models.power_kernel import run_power_kernel
+    from dealii_asm.models.power_kernel import run_power_kernel
 
     out = io.StringIO()
     run_power_kernel({"dim": 2, "n subdivision": 2, "fe degree": 2,
@@ -56,7 +56,7 @@ def test_power_kernel_protocol():
 
 def test_kershaw_mg_converges():
     """Deformed-mesh end-to-end: Kershaw ε=0.5, h-MG with FDM smoothing."""
-    from dealii_asm_tpu.models.poisson import run_config
+    from dealii_asm.models.poisson import run_config
 
     cfg = {
         "dim": 3, "degree": 2, "n refinements": 1,
@@ -79,7 +79,7 @@ def test_kershaw_mg_converges():
 
 
 def test_experiment_generator(tmp_path, monkeypatch):
-    import dealii_asm_tpu  # noqa: F401  (repo root on path)
+    import dealii_asm  # noqa: F401  (repo root on path)
     import experiments.kershaw as gen
 
     monkeypatch.setattr(gen, "HERE", str(tmp_path))

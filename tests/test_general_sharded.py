@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from dealii_asm_tpu.fem.general_dofs import GeneralDofHandler
-from dealii_asm_tpu.mesh.unstructured import hyper_ball_balanced
-from dealii_asm_tpu.ops.laplace_general import GeneralLaplaceOperator
-from dealii_asm_tpu.parallel.general_sharded import (GeneralPartition,
+from dealii_asm.fem.general_dofs import GeneralDofHandler
+from dealii_asm.mesh.unstructured import hyper_ball_balanced
+from dealii_asm.ops.laplace_general import GeneralLaplaceOperator
+from dealii_asm.parallel.general_sharded import (GeneralPartition,
                                                      ShardedGeneralOperator)
 
 
@@ -62,14 +62,14 @@ class TestShardedOperator:
 class TestShardedASM:
     @pytest.mark.parametrize("wt", ["symm", "post", "ras"])
     def test_matches_single_device(self, wt):
-        from dealii_asm_tpu.precond.asm_general import GeneralASMPreconditioner
+        from dealii_asm.precond.asm_general import GeneralASMPreconditioner
 
         mesh = hyper_ball_balanced(3).refine()
         dh = GeneralDofHandler(mesh, 2)
         asm = GeneralASMPreconditioner(dh, n_overlap=1, weighting_type=wt,
                                        dtype=jnp.float32)
         part = GeneralPartition(dh, 8)
-        from dealii_asm_tpu.parallel.general_sharded import ShardedGeneralASM
+        from dealii_asm.parallel.general_sharded import ShardedGeneralASM
 
         sasm = ShardedGeneralASM(asm, part, _mesh(8))
         rng = np.random.default_rng(2)
@@ -82,8 +82,8 @@ class TestShardedASM:
 
 class TestShardedTransfer:
     def test_matches_single_device(self):
-        from dealii_asm_tpu.ops.transfer_general import GeneralTwoLevelTransfer
-        from dealii_asm_tpu.parallel.general_sharded import (
+        from dealii_asm.ops.transfer_general import GeneralTwoLevelTransfer
+        from dealii_asm.parallel.general_sharded import (
             ShardedGeneralTransfer)
 
         mesh = hyper_ball_balanced(3)

@@ -14,16 +14,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dealii_asm_tpu.fem.dofs import DofHandler
-from dealii_asm_tpu.fem.functions import constant_rhs
-from dealii_asm_tpu.mesh.grid import StructuredMesh
-from dealii_asm_tpu.ops.laplace import LaplaceOperator
-from dealii_asm_tpu.precond.asm import ASMPreconditioner
-from dealii_asm_tpu.solvers.chebyshev import (
+from dealii_asm.fem.dofs import DofHandler
+from dealii_asm.fem.functions import constant_rhs
+from dealii_asm.mesh.grid import StructuredMesh
+from dealii_asm.ops.laplace import LaplaceOperator
+from dealii_asm.precond.asm import ASMPreconditioner
+from dealii_asm.solvers.chebyshev import (
     ChebyshevPreconditioner,
     estimate_eigenvalues,
 )
-from dealii_asm_tpu.solvers.krylov import solve
+from dealii_asm.solvers.krylov import solve
 
 
 @pytest.fixture(scope="module")

@@ -45,7 +45,7 @@ def _expected_evs(name: str) -> list[tuple[float, float]]:
 
 @pytest.mark.parametrize("name", _cases())
 def test_golden_config(name):
-    from dealii_asm_tpu.models.poisson import run_config
+    from dealii_asm.models.poisson import run_config
 
     with open(os.path.join(REF_DIR, name + ".json")) as f:
         params = json.load(f)

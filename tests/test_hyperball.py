@@ -3,7 +3,7 @@
 Covers the reference's orientation machinery semantics
 (/root/reference/include/reduced_access.h, overlap_unstructured_01.cc) and the
 ball mesh family (element_centered_preconditioners_01.cc:398-408) in the
-TPU-native form: orientation-baked index tables + gather-path operator/ASM.
+array form: orientation-baked index tables + gather-path operator/ASM.
 """
 
 import numpy as np
@@ -11,14 +11,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from dealii_asm_tpu.fem.general_dofs import GeneralDofHandler
-from dealii_asm_tpu.mesh.unstructured import (
+from dealii_asm.fem.general_dofs import GeneralDofHandler
+from dealii_asm.mesh.unstructured import (
     UnstructuredMesh,
     _VERTEX_COORDS,
     hyper_ball_balanced,
 )
-from dealii_asm_tpu.ops.laplace_general import GeneralLaplaceOperator
-from dealii_asm_tpu.precond.asm_general import GeneralASMPreconditioner
+from dealii_asm.ops.laplace_general import GeneralLaplaceOperator
+from dealii_asm.precond.asm_general import GeneralASMPreconditioner
 
 
 def box_mesh(dim, n):
@@ -57,8 +57,8 @@ def rotated_two_cube_mesh():
 def _interior_laplace_residual(mesh, p):
     """max |(A u_lin)_i| over interior i for the interpolant of a linear
     function — zero iff the orientation-baked tables give a conforming space."""
-    from dealii_asm_tpu.fem.lagrange import shape_1d
-    from dealii_asm_tpu.mesh.grid import _tensor_gradient, _tensor_weights
+    from dealii_asm.fem.lagrange import shape_1d
+    from dealii_asm.mesh.grid import _tensor_gradient, _tensor_weights
 
     dh = GeneralDofHandler(mesh, p)
     s = shape_1d(p, p + 1)
@@ -76,7 +76,7 @@ def _interior_laplace_residual(mesh, p):
         wq[None] * detj)[..., None, None]
     # isoparametric points for the mdeg mapping (u_lin must lie in the space)
     sp = mesh.cell_mapping_points(mdeg)
-    from dealii_asm_tpu.fem.lagrange import gauss_lobatto_points, lagrange_values
+    from dealii_asm.fem.lagrange import gauss_lobatto_points, lagrange_values
 
     gllm = gauss_lobatto_points(mdeg + 1)
     gllp = gauss_lobatto_points(p + 1)
@@ -143,7 +143,7 @@ class TestOrientationCorrectness:
 class TestGeneralOperator:
     @pytest.mark.parametrize("dim", [2, 3])
     def test_vmult_matches_dense(self, dim):
-        from dealii_asm_tpu.fem.assemble import assemble_laplace_general
+        from dealii_asm.fem.assemble import assemble_laplace_general
 
         mesh = hyper_ball_balanced(dim)
         dh = GeneralDofHandler(mesh, 3)
@@ -156,7 +156,7 @@ class TestGeneralOperator:
 
     def test_ball_poisson_convergence_order(self):
         # u = 1 - |x|^2, Q2 isoparametric-ish: O(h^3) nodal error
-        from dealii_asm_tpu.solvers.krylov import solve as ksolve
+        from dealii_asm.solvers.krylov import solve as ksolve
 
         errs = []
         for nref in (1, 2):
@@ -174,7 +174,7 @@ class TestGeneralOperator:
 
 class TestGeneralASM:
     def test_fdm_symm_converges(self):
-        from dealii_asm_tpu.solvers.krylov import solve as ksolve
+        from dealii_asm.solvers.krylov import solve as ksolve
 
         mesh = hyper_ball_balanced(2).refine_global(2)
         dh = GeneralDofHandler(mesh, 4)
@@ -202,7 +202,7 @@ class TestGeneralASM:
 class TestGeneralTransfer:
     @pytest.mark.parametrize("dim", [2, 3])
     def test_transpose_identity(self, dim):
-        from dealii_asm_tpu.ops.transfer_general import GeneralTwoLevelTransfer
+        from dealii_asm.ops.transfer_general import GeneralTwoLevelTransfer
 
         coarse = hyper_ball_balanced(dim)
         fine = coarse.refine()
@@ -219,7 +219,7 @@ class TestGeneralTransfer:
     def test_h_prolongation_exact_on_flat_mesh(self):
         # on a flat (affine) mesh the prolongation of the interpolant of a
         # polynomial of degree p reproduces its fine interpolant exactly
-        from dealii_asm_tpu.ops.transfer_general import GeneralTwoLevelTransfer
+        from dealii_asm.ops.transfer_general import GeneralTwoLevelTransfer
 
         coarse = box_mesh(2, 2)
         fine = coarse.refine()
@@ -243,7 +243,7 @@ class TestGeneralTransfer:
 class TestBallMultigrid:
     @pytest.mark.slow
     def test_ball_mg_iteration_count(self):
-        from dealii_asm_tpu.models.poisson import run_config
+        from dealii_asm.models.poisson import run_config
 
         cfg = {
             "dim": 2, "degree": 3, "n refinements": 2,
@@ -269,10 +269,10 @@ class TestGeneralOverlapPatches:
     def test_box_patch_positions_exact(self):
         # every overlap-2 patch slot must land on the exact physical lattice
         # point of the equivalent structured patch
-        from dealii_asm_tpu.fem.general_patches import (
+        from dealii_asm.fem.general_patches import (
             general_element_patch_indices,
         )
-        from dealii_asm_tpu.fem.lagrange import gauss_lobatto_points
+        from dealii_asm.fem.lagrange import gauss_lobatto_points
 
         p, o, nc = 3, 2, 3
         mesh = box_mesh(3, nc)
@@ -300,7 +300,7 @@ class TestGeneralOverlapPatches:
 
     @pytest.mark.slow
     def test_ball_overlap2_converges_better(self):
-        from dealii_asm_tpu.solvers.krylov import solve as ksolve
+        from dealii_asm.solvers.krylov import solve as ksolve
 
         mesh = hyper_ball_balanced(2).refine_global(2)
         dh = GeneralDofHandler(mesh, 3)
@@ -320,8 +320,7 @@ class TestGeneralOverlapPatches:
 
 class TestGeneralLanesApply:
     """Lane-major (patches-on-lanes) FDM apply equals the patch-major oracle
-    on the unstructured path (see asm.py: the (P, m, ..., m) layout tiles each
-    trailing (m, m) as (8, 128) on TPU — 41x HBM inflation at m=5)."""
+    on the unstructured path (see asm.py's _axis_apply_lanes)."""
 
     @pytest.mark.parametrize("ov,wt", [(1, "symm"), (1, "ras"), (2, "post")])
     def test_matches_patch_major_oracle(self, ov, wt):
@@ -363,10 +362,9 @@ class TestGeneralOperatorLanes:
         oracle = GeneralLaplaceOperator(dh, dtype=jnp.float64,
                                         kernel="sumfac")
         assert lanes.kernel == "lanes" and lanes.coeff6 is not None
-        # f64: double-single local apply — fused Pallas kernel (3D) or the
-        # XLA dd composition (2D / unsupported shapes)
-        assert (lanes.coeff6_dd is not None
-                or getattr(lanes, "_lanes_dd_pallas", None) is not None)
+        # f64: native f64 local apply by default (kernel="lanes-dd" is the
+        # double-single variant)
+        assert lanes.coeff6_dd is None
         rng = np.random.default_rng(1)
         x = jnp.asarray(rng.standard_normal(dh.n_dofs))
         got, ref = np.asarray(lanes.vmult(x)), np.asarray(oracle.vmult(x))
@@ -390,7 +388,7 @@ class TestVectorizedPatchIndices:
         (2, 1, 3, 1), (2, 1, 3, 2), (3, 0, 2, 1), (3, 0, 4, 2), (3, 1, 3, 2),
     ])
     def test_matches_scalar_ball(self, dim, nref, p, ov):
-        from dealii_asm_tpu.fem.general_patches import (
+        from dealii_asm.fem.general_patches import (
             general_element_patch_indices,
             general_element_patch_indices_scalar,
         )
@@ -402,7 +400,7 @@ class TestVectorizedPatchIndices:
         np.testing.assert_array_equal(got, ref)
 
     def test_matches_scalar_box(self):
-        from dealii_asm_tpu.fem.general_patches import (
+        from dealii_asm.fem.general_patches import (
             general_element_patch_indices,
             general_element_patch_indices_scalar,
         )
@@ -420,9 +418,9 @@ class TestGeneralVertexPatches:
     @pytest.mark.parametrize("dim,p", [(2, 3), (3, 2), (3, 4)])
     def test_box_matches_structured(self, dim, p):
         """On a box the general vertex ASM equals the structured one."""
-        from dealii_asm_tpu.fem.dofs import DofHandler
-        from dealii_asm_tpu.mesh.grid import StructuredMesh
-        from dealii_asm_tpu.precond.asm import ASMPreconditioner
+        from dealii_asm.fem.dofs import DofHandler
+        from dealii_asm.mesh.grid import StructuredMesh
+        from dealii_asm.precond.asm import ASMPreconditioner
 
         nc = 3
         smesh = StructuredMesh(dim=dim, n_cells=(nc,) * dim)
@@ -449,7 +447,7 @@ class TestGeneralVertexPatches:
 
     @pytest.mark.parametrize("dim", [2, 3])
     def test_ball_vertex_converges(self, dim):
-        from dealii_asm_tpu.solvers.krylov import solve as ksolve
+        from dealii_asm.solvers.krylov import solve as ksolve
 
         mesh = hyper_ball_balanced(dim).refine_global(3 - dim + 1)
         dh = GeneralDofHandler(mesh, 3)

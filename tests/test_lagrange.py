@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from dealii_asm_tpu.fem.lagrange import (
+from dealii_asm.fem.lagrange import (
     gauss_lobatto_points,
     gauss_points,
     lagrange_derivatives,

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import scipy.linalg as sla
 
-import dealii_asm_tpu.native as native
-from dealii_asm_tpu.fem.lagrange import reference_mass_stiffness_1d
-from dealii_asm_tpu.precond.fdm import fdm_1d_matrices as py_fdm
+import dealii_asm.native as native
+from dealii_asm.fem.lagrange import reference_mass_stiffness_1d
+from dealii_asm.precond.fdm import fdm_1d_matrices as py_fdm
 
 pytestmark = pytest.mark.skipif(native.get_lib() is None,
                                 reason="native library unavailable")

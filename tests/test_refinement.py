@@ -3,13 +3,13 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dealii_asm_tpu.fem.dofs import DofHandler
-from dealii_asm_tpu.fem.functions import constant_rhs
-from dealii_asm_tpu.mesh.grid import StructuredMesh
-from dealii_asm_tpu.ops.laplace import LaplaceOperator
-from dealii_asm_tpu.precond.asm import ASMPreconditioner
-from dealii_asm_tpu.solvers.chebyshev import ChebyshevPreconditioner, estimate_eigenvalues
-from dealii_asm_tpu.solvers.refinement import refined_solve
+from dealii_asm.fem.dofs import DofHandler
+from dealii_asm.fem.functions import constant_rhs
+from dealii_asm.mesh.grid import StructuredMesh
+from dealii_asm.ops.laplace import LaplaceOperator
+from dealii_asm.precond.asm import ASMPreconditioner
+from dealii_asm.solvers.chebyshev import ChebyshevPreconditioner, estimate_eigenvalues
+from dealii_asm.solvers.refinement import refined_solve
 
 
 def test_refined_solve_reaches_f64_accuracy():

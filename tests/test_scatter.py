@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dealii_asm_tpu.ops.scatter import TransposeScatter
+from dealii_asm.ops.scatter import TransposeScatter
 
 
 def _oracle(v, idx, n):

@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import pytest
 
-from dealii_asm_tpu.models.poisson import run_config
+from dealii_asm.models.poisson import run_config
 
 
 def _cfg(**over):
@@ -68,12 +68,12 @@ class TestShardedDriver:
                                    rtol=1e-7, atol=1e-9)
 
     @pytest.mark.skipif(
-        not os.environ.get("DEALII_ASM_TPU_HEAVY_TESTS"),
+        not os.environ.get("DEALII_ASM_HEAVY_TESTS"),
         reason="full unstructured sharded E2E: 30-70 min on the one-core "
                "CI host (two MG setups + multi-device shard compiles). "
                "Verified green this round at 8 devices (iteration parity "
                "+ solution match); component equality lives in "
-               "test_general_sharded.py. DEALII_ASM_TPU_HEAVY_TESTS=1 "
+               "test_general_sharded.py. DEALII_ASM_HEAVY_TESTS=1 "
                "runs it.")
     def test_unstructured_sharded_matches_single_device(self):
         # P1/P3 for every mesh family (round 5): the hyperball routes
@@ -104,7 +104,7 @@ class TestShardedBenchmark:
         sharded applies run (values exercised by halo equality tests)."""
         import io
 
-        from dealii_asm_tpu.models.benchmark import run_benchmark
+        from dealii_asm.models.benchmark import run_benchmark
 
         buf = io.StringIO()
         run_benchmark({"dim": 3, "n subdivisions": 14, "fe degree": 4,

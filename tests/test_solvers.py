@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dealii_asm_tpu.solvers.krylov import (
+from dealii_asm.solvers.krylov import (
     ReductionControl,
     bicgstab,
     cg,
@@ -10,7 +10,7 @@ from dealii_asm_tpu.solvers.krylov import (
     fgmres,
     gmres,
 )
-from dealii_asm_tpu.solvers.chebyshev import ChebyshevPreconditioner, EigenvalueInfo
+from dealii_asm.solvers.chebyshev import ChebyshevPreconditioner, EigenvalueInfo
 
 
 def _spd_system(n=60, seed=0):
@@ -106,15 +106,15 @@ class TestDDCG:
     and must reproduce the f64 device CG's iterations and solution."""
 
     def _setup(self, cells=(6, 5, 4), p=2):
-        from dealii_asm_tpu.fem.dofs import DofHandler
-        from dealii_asm_tpu.mesh.grid import StructuredMesh
-        from dealii_asm_tpu.ops.laplace import LaplaceOperator
-        from dealii_asm_tpu.precond.adapter import PrecisionAdapter
-        from dealii_asm_tpu.precond.diagonal import DiagonalPreconditioner
+        from dealii_asm.fem.dofs import DofHandler
+        from dealii_asm.mesh.grid import StructuredMesh
+        from dealii_asm.ops.laplace import LaplaceOperator
+        from dealii_asm.precond.adapter import PrecisionAdapter
+        from dealii_asm.precond.diagonal import DiagonalPreconditioner
 
         mesh = StructuredMesh(3, cells)
         dofs = DofHandler(mesh, p)
-        op = LaplaceOperator(dofs, dtype=jnp.float64)
+        op = LaplaceOperator(dofs, dtype=jnp.float64, kernel="dd")
         assert op.supports_dd
         op32 = LaplaceOperator(dofs, dtype=jnp.float32)
         M = PrecisionAdapter(DiagonalPreconditioner(op32), jnp.float32)
@@ -125,7 +125,7 @@ class TestDDCG:
         return op, M, b
 
     def test_matches_f64_device_cg(self):
-        from dealii_asm_tpu.solvers import krylov
+        from dealii_asm.solvers import krylov
 
         op, M, b = self._setup()
         control = ReductionControl(max_steps=200, tolerance=1e-12,
@@ -139,7 +139,7 @@ class TestDDCG:
         assert np.abs(x_dd - x_64).max() <= 1e-9 * np.abs(x_64).max()
 
     def test_dispatch_engages(self, monkeypatch):
-        from dealii_asm_tpu.solvers import krylov
+        from dealii_asm.solvers import krylov
 
         op, M, b = self._setup(cells=(4, 4, 3))
         hits = []
@@ -157,7 +157,7 @@ class TestDDCG:
         assert hits and res.converged
 
     def test_vmult_dd_matches_f64_vmult(self):
-        from dealii_asm_tpu.ops.ddmath import dd_from_f64, dd_to_f64
+        from dealii_asm.ops.ddmath import dd_from_f64, dd_to_f64
 
         op, M, b = self._setup(cells=(5, 4, 4), p=3)
         u = b / jnp.linalg.norm(b)
@@ -169,15 +169,14 @@ class TestDDCG:
 
 class TestChunkedDeviceCG:
     """The device CG re-dispatches in bounded chunks (first chunk 32
-    iterations) so no while_loop dispatch runs for minutes — a multi-minute
-    dispatch crashes the TPU worker (7.2M Kershaw, staged probe).  A solve
+    iterations) so no while_loop dispatch runs for minutes.  A solve
     crossing several chunk boundaries must match the host loop exactly."""
 
     def test_long_solve_crosses_chunks(self):
-        from dealii_asm_tpu.fem.dofs import DofHandler
-        from dealii_asm_tpu.mesh.grid import StructuredMesh
-        from dealii_asm_tpu.ops.laplace import LaplaceOperator
-        from dealii_asm_tpu.precond.factory import DiagonalPreconditioner
+        from dealii_asm.fem.dofs import DofHandler
+        from dealii_asm.mesh.grid import StructuredMesh
+        from dealii_asm.ops.laplace import LaplaceOperator
+        from dealii_asm.precond.factory import DiagonalPreconditioner
 
         mesh = StructuredMesh(2, (24, 24))
         dofs = DofHandler(mesh, 2)

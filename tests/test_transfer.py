@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dealii_asm_tpu.fem.dofs import DofHandler
-from dealii_asm_tpu.mesh.balanced import decompose_balanced
-from dealii_asm_tpu.mesh.grid import StructuredMesh
-from dealii_asm_tpu.ops.transfer import TwoLevelTransfer, p_sequence
+from dealii_asm.fem.dofs import DofHandler
+from dealii_asm.mesh.balanced import decompose_balanced
+from dealii_asm.mesh.grid import StructuredMesh
+from dealii_asm.ops.transfer import TwoLevelTransfer, p_sequence
 
 
 def _transfer_matrix(tr, n_coarse, n_fine, prolongate=True):

@@ -1,14 +1,12 @@
 """Minimal repro of the XLA:CPU fusion-emitter reassociation hazard.
 
-The merged-dd kernel's error-free transforms (TwoSum/QTwoSum chains on
-split coefficient tables) are dd-exact per-op and on the TPU, but XLA:CPU's
-fusion-kernel emitter reassociates/contracts somewhere below the dumped IR
-surfaces, shifting results by ~1e-7 (full hunt: experiments/results_r3.md,
-round-3 test-infrastructure note).  The production fix is compiling
-interpret-mode (CPU test) jits with ``xla_disable_hlo_passes=fusion``
-(dd_vmult.EXACT_EFT_CPU_COMPILER_OPTIONS).  This test pins the contract
-that matters: under those compiler options the EFT chain is bit-exact
-against the sequential (numpy) evaluation.
+The double-single error-free transforms (TwoSum/QTwoSum chains on split
+coefficient tables) are dd-exact per-op, but XLA:CPU's fusion-kernel
+emitter reassociates/contracts somewhere below the dumped IR surfaces,
+shifting results by ~1e-7.  The fix is compiling dd-exact CPU jits with
+``xla_disable_hlo_passes=fusion`` (ddmath.EXACT_EFT_CPU_COMPILER_OPTIONS).
+This test pins the contract that matters: under those compiler options the
+EFT chain is bit-exact against the sequential (numpy) evaluation.
 """
 
 import numpy as np
@@ -17,7 +15,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from dealii_asm_tpu.ops.pallas.dd_vmult import EXACT_EFT_CPU_COMPILER_OPTIONS
+from dealii_asm.ops.ddmath import EXACT_EFT_CPU_COMPILER_OPTIONS
 
 f32 = np.float32
 
