@@ -10,18 +10,26 @@ Without options:
 1. device check: the first JAX device is a GPU, else exit nonzero; prints
    the card's name and power limit as nvidia-smi reports them;
 2. three solves through the user entry point ``models.poisson.run_config``,
-   at the reference study's sizes (data.pdf), each with its own line:
-   Kershaw Q4 7.2M DoF (<= 55 its), ball Q4 8.4M DoF (<= 7 its) and the
-   flagship anisotropy Q4 17M DoF (5 its);
+   at the reference study's sizes (data.pdf), each with its own line: the
+   flagship anisotropy Q4 17M DoF (5 its), Kershaw Q4 7.2M DoF (<= 55 its)
+   and ball Q4 8.4M DoF (<= 7 its);
 3. accuracy at full width on the flagship grid: the f32 level operator, the
-   FDM apply and the plain smoother step against f64 evaluations of the same
-   operators, rel-L2 within stated tolerances.
+   FDM apply and the plain smoother step, at the matmul precisions the
+   flagship solve uses, against f64 evaluations of the same operators,
+   rel-L2 within stated tolerances.
+
+``peak_bytes_in_use`` is the process's high-water mark (JAX cannot reset
+it); ``peak_is_own`` says whether the solve raised it, and
+``bytes_in_use_before`` what earlier phases still held when it started, so
+a solve that raised the mark peaked at the difference of the two.  The
+flagship goes first, so its peak is always its own.
 
 With ``--four-cards``: only the flagship with ``"n devices": 4``
 (explicit-halo sharding over a 1-D mesh of the four cards, halos by
 ``ppermute``), which must take the one-card run's 5 iterations, and the
 one-card flagship it is compared with, in the same process.  Every card
-must hold part of the sharded solve's memory.
+must hold at least its share of the outer CG's vectors; the per-card peaks
+are printed by set-up stage.
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -47,10 +55,10 @@ BALL_MAX_ITS = 7      # the reference takes 6
 # Level operator, true-f32 ("highest") matmuls: 1.9e-8 measured on the H100
 # at 17M DoF; 1e-5 keeps a wide margin and fails TF32 operands (1.1e-4).
 OPERATOR_TOL = 1e-5
-# FDM apply and smoother step, TF32 matmuls (precond/asm.py: chosen for
-# speed, the FDM only preconditions): 1.0e-3 measured at 17M DoF.  TF32
-# keeps 10 mantissa bits (unit roundoff 4.9e-4); 5e-3 bounds it with margin
-# and still fails bf16 operands (unit roundoff 3.9e-3 and more).
+# FDM apply and smoother step at the flagship config's FDM precision, TF32
+# (chosen for speed; the FDM only preconditions): 1.0e-3 measured at 17M
+# DoF.  TF32 keeps 10 mantissa bits (unit roundoff 4.9e-4); 5e-3 bounds it
+# with margin and still fails bf16 operands (unit roundoff 3.9e-3 and more).
 FDM_TOL = 5e-3
 
 
@@ -81,11 +89,25 @@ def peak_bytes(dev):
     return dev.memory_stats()["peak_bytes_in_use"]
 
 
-def solve(name, params, check):
-    """One solve through run_config; ``check(its)`` states the contract."""
+def live_bytes(dev):
+    return dev.memory_stats()["bytes_in_use"]
+
+
+def fdm_precision(params):
+    """The FDM smoother's matmul precision named by a solve config."""
+    smoother = params["preconditioner"]["mg smoother"]
+    return smoother["preconditioner"].get("matmul precision")
+
+
+def solve(name, params, check, setup_log=None):
+    """One solve through run_config; ``check(its)`` states the contract.
+    ``setup_log`` receives run_config's set-up log."""
     from dealii_asm.models.poisson import run_config
 
-    r = run_config(params, log=lambda *_: None)
+    live_before = live_bytes(jax.devices()[0])
+    peak_before = peak_bytes(jax.devices()[0])
+    r = run_config(params, log=setup_log or (lambda *_: None))
+    peak = peak_bytes(jax.devices()[0])
     if not r["converged"] or not check(r["it"]):
         raise SystemExit(f"chip_smoke: {name} failed its iteration contract "
                          f"(converged={r['converged']}, its={r['it']})")
@@ -93,8 +115,8 @@ def solve(name, params, check):
         "solve": name, "n_dofs": r["n_dofs"], "its": r["it"],
         "solve_s": r["time"], "setup_s": r["setup_time"],
         "first_solve_s": r["first_solve_time"],
-        # process high-water mark so far (JAX cannot reset it)
-        "peak_bytes_in_use": peak_bytes(jax.devices()[0])}))
+        "peak_bytes_in_use": peak, "peak_is_own": peak > peak_before,
+        "bytes_in_use_before": live_before}))
     return r
 
 
@@ -107,12 +129,14 @@ def rel_l2(a, ref):
 
 
 def accuracy(cells=64, degree=4):
-    """f32 level arithmetic against f64 on the flagship grid."""
+    """f32 level arithmetic against f64 on the flagship grid, at the
+    precisions the flagship solve uses."""
     import jax.numpy as jnp
     import numpy as np
 
     from dealii_asm.fem.dofs import DofHandler
     from dealii_asm.mesh.grid import StructuredMesh
+    from dealii_asm.models.poisson import LEVEL_MATMUL_PRECISION
     from dealii_asm.ops.laplace import LaplaceOperator
     from dealii_asm.precond.asm import ASMPreconditioner
 
@@ -123,12 +147,15 @@ def accuracy(cells=64, degree=4):
     x64, b64 = x.astype(jnp.float64), b.astype(jnp.float64)
     omega = 0.3
 
+    precision = fdm_precision(load_config("e2e_aniso_q4.json"))
+
     def fdm(dtype):
         return ASMPreconditioner(dofs, n_overlap=1, weighting_type="symm",
-                                 dtype=dtype)
+                                 dtype=dtype, matmul_precision=precision)
 
     # the MG level operator as the solver builds it, and its f64 twin
-    op = LaplaceOperator(dofs, dtype=jnp.float32, matmul_precision="highest")
+    op = LaplaceOperator(dofs, dtype=jnp.float32,
+                         matmul_precision=LEVEL_MATMUL_PRECISION)
     op64 = LaplaceOperator(dofs, dtype=jnp.float64)
     asm, asm64 = fdm(jnp.float32), fdm(jnp.float64)
     step = jax.jit(lambda y, c: y + omega * asm.vmult_traceable(
@@ -151,12 +178,12 @@ def accuracy(cells=64, degree=4):
 
 
 def one_card():
+    solve("aniso q4 (flagship)", load_config("e2e_aniso_q4.json"),
+          lambda its: its == FLAGSHIP_ITS)
     solve("kershaw q4", load_config("e2e_kershaw_q4.json"),
           lambda its: its <= KERSHAW_MAX_ITS)
     solve("ball q4", load_config("e2e_ball_q4.json"),
           lambda its: its <= BALL_MAX_ITS)
-    solve("aniso q4 (flagship)", load_config("e2e_aniso_q4.json"),
-          lambda its: its == FLAGSHIP_ITS)
     accuracy()
 
 
@@ -165,15 +192,32 @@ def four_cards():
     if len(devices) < 4:
         raise SystemExit(f"chip_smoke: --four-cards needs 4 GPUs, found "
                          f"{len(devices)}")
+    cards = devices[:4]
     params = load_config("e2e_aniso_q4.json")
     params["n devices"] = 4
+    # per-card peaks at each set-up stage run_config logs: growth listed
+    # under a stage happened while that stage ran
+    stages, stage = [], ["start"]
+
+    def setup_log(msg=""):
+        peaks = [peak_bytes(d) for d in cards]
+        if not stages or peaks != stages[-1][1]:
+            stages.append([stage[0], peaks])
+        text = str(msg).strip()
+        stage[0] = text.splitlines()[0] if text else stage[0]
+
     r4 = solve("aniso q4 (flagship), 4 cards", params,
-               lambda its: its == FLAGSHIP_ITS)
-    peaks = [peak_bytes(d) for d in devices[:4]]
-    log(json.dumps({"peak_bytes_in_use_per_card": peaks}))
-    if min(peaks) < 0.5 * max(peaks):
+               lambda its: its == FLAGSHIP_ITS, setup_log)
+    peaks = [peak_bytes(d) for d in cards]
+    stages.append([f"{stage[0]} (to the end of the solves)", peaks])
+    log(json.dumps({"peak_bytes_in_use_per_card": peaks,
+                    "peaks_by_setup_stage": stages}))
+    # every card's share of the outer CG's four f64 vectors (x, r, p, Ap):
+    # a card holding less does not hold its part of the solve
+    share = 4 * 8 * r4["n_dofs"] // len(cards)
+    if min(peaks) < share:
         raise SystemExit("chip_smoke: the sharded solve left a card "
-                         f"(nearly) idle: peaks {peaks}")
+                         f"(nearly) idle: peaks {peaks}, share {share}")
     r1 = solve("aniso q4 (flagship), 1 card", load_config(
         "e2e_aniso_q4.json"), lambda its: its == FLAGSHIP_ITS)
     if r1["it"] != r4["it"]:

@@ -266,7 +266,8 @@ def _build_sharded_general(precon_p: dict, family, fe_degree: int,
     asm = GeneralASMPreconditioner(
         fine_dofs, n_overlap=1,
         weighting_type=get_param(inner_p, "weighting type", "symm"),
-        dtype=level_dtype)
+        dtype=level_dtype,
+        matmul_precision=get_param(inner_p, "matmul precision", None))
     sasm = ShardedGeneralASM(asm, part, jmesh)
 
     class _STransfer:

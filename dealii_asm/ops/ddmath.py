@@ -5,9 +5,10 @@ The outer-Krylov matvec of the mixed-precision architecture (P8, reference
 enough mantissa to see residuals at rel. 1e-5 through the operator's
 conditioning (κ ≈ 1/h²: ~33 bits at 17M DoFs); a double-single
 representation (hi + lo, both f32, |lo| ≤ ulp(hi)/2 ≈ 2⁻²⁴|hi|) provides
-~47 bits using only f32 adds and multiplies.  It is the opt-in
-``kernel="dd"`` / ``"lanes-dd"`` path of the Laplace operators; the default
-f64 apply is native f64.
+~47 bits using only f32 adds and multiplies.  The f64 applies of the
+Laplace operators are native f64; this double-single path stays reachable
+only for its tests (``kernel="dd"`` / ``"lanes-dd"``) until it is deleted,
+and is not a user option.
 
 All error-free transformations here are FMA-free (Dekker/Veltkamp): products
 are made exact by splitting both operands into ≤12-bit-significand halves

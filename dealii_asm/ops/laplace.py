@@ -197,8 +197,8 @@ class LaplaceOperator:
             self.K1d_global = [jnp.asarray(K, dtype) for _, K in factors]
             # banded (diagonal-table) form of the same factors: elementwise
             # shift-multiply-add applies, O((2p+1)·n) work per axis — the
-            # native-f64 outer vmult.  kernel="dd" instead runs it as
-            # double-single f32 pairs (ops/ddmath.py)
+            # native-f64 outer vmult.  kernel="dd" (kept only for its
+            # tests) runs it as double-single f32 pairs (ops/ddmath.py)
             from .tensorops import banded_diagonals
 
             bw = self.degree

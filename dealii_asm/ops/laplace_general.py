@@ -14,9 +14,10 @@ Two local-apply layouts:
 - ``kernel="lanes"`` (default, the production path): cells travel on the
   LAST (lane) axis — local tensors are (n, ..., n, C), the shared 1D shape
   matrices apply as unrolled scalar broadcast-FMAs, and the merged
-  coefficient is six symmetric components of shape (q, ..., q, C);
+  coefficient is six symmetric components of shape (q, ..., q, C).
   ``kernel="lanes-dd"`` runs the same layout's f64 apply as double-single
-  f32 pairs (ops/ddmath.py).
+  f32 pairs (ops/ddmath.py); it is kept only for its tests, not as a user
+  option.
 - ``kernel="sumfac"``/``"fused-B"``: the patch-major oracle (kept for
   equality tests and small problems).
 """

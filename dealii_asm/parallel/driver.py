@@ -128,9 +128,10 @@ def _level_asm(dofs, smoother_p: dict, dtype):
     weighting = get_param(inner_p, "weighting type", "symm")
     patch = "element" if get_param(inner_p, "element centric", True) \
         else "vertex"
-    asm = ASMPreconditioner(dofs, n_overlap=n_overlap,
-                            weighting_type=weighting, patch_type=patch,
-                            dtype=dtype)
+    asm = ASMPreconditioner(
+        dofs, n_overlap=n_overlap, weighting_type=weighting,
+        patch_type=patch, dtype=dtype,
+        matmul_precision=get_param(inner_p, "matmul precision", None))
     if asm.global_fdm is None:
         raise ValueError(
             "sharded FDM smoother needs the separable global-FDM path "

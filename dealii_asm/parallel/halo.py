@@ -22,13 +22,13 @@ vector match the unpadded problem exactly.
 
 from __future__ import annotations
 
-import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..utils.jitutils import precision_context
 from .sharding import AXIS
 
 
@@ -174,13 +174,6 @@ def _axis_mm(T, M, grid_axis: int):
     it = letters[grid_axis]
     out = letters.replace(it, "o")
     return jnp.einsum(f"o{it},{letters}->{out}", M, T)
-
-
-def _precision(name):
-    """Context naming the matmul precision of a traced apply (f32 matmuls
-    that name none may run in TF32 on the GPU); no-op for None."""
-    return (jax.default_matmul_precision(name) if name
-            else contextlib.nullcontext())
 
 
 def _ceil_to(n: int, q: int) -> int:
@@ -463,7 +456,7 @@ class ShardedLattice:
         sm = jax.shard_map(core, mesh=self.jmesh,
                            in_specs=(self._zspec, P(AXIS)) + specs,
                            out_specs=self._zspec)
-        with _precision(self.op.matmul_precision):
+        with precision_context(self.op.matmul_precision):
             out = sm(u.reshape(self.grid_shape_pad), self._free_z, *mats)
         return out.reshape(-1)
 
@@ -482,7 +475,7 @@ class ShardedLattice:
         sm = jax.shard_map(core, mesh=self.jmesh,
                            in_specs=(self._zspec, stack3, stack3, P(AXIS)),
                            out_specs=self._zspec)
-        with _precision(self.asm.matmul_precision):
+        with precision_context(self.asm.matmul_precision):
             out = sm(r.reshape(self.grid_shape_pad), self._Gz, self._Gzt,
                      self._lam_z)
         return out.reshape(-1)
@@ -597,7 +590,7 @@ class ShardedTransfer:
                 in_specs=(P(*([None] * self.dim)), P(None), P(AXIS),
                           P(AXIS, None, None)),
                 out_specs=self._zspec)
-            with _precision(self.t.matmul_precision):
+            with precision_context(self.t.matmul_precision):
                 out = sm(u_coarse.reshape(self.coarse_grid_shape),
                          self._free_c_z, self._free_f_z, self._Pz)
             return out.reshape(-1)
@@ -612,7 +605,7 @@ class ShardedTransfer:
             core, mesh=self.jmesh,
             in_specs=(self._zspec, P(AXIS), P(AXIS), P(AXIS, None, None)),
             out_specs=self._zspec)
-        with _precision(self.t.matmul_precision):
+        with precision_context(self.t.matmul_precision):
             out = sm(u_coarse.reshape(self.coarse_sl.grid_shape_pad),
                      self._free_c_z, self._free_f_z, self._Pz)
         return out.reshape(-1)
@@ -632,7 +625,7 @@ class ShardedTransfer:
                 core, mesh=self.jmesh,
                 in_specs=(self._zspec, P(AXIS), P(None), P(AXIS, None, None)),
                 out_specs=P(*([None] * self.dim)))
-            with _precision(self.t.matmul_precision):
+            with precision_context(self.t.matmul_precision):
                 out = sm(r_fine.reshape(self.fine_sl.grid_shape_pad),
                          self._free_f_z, self._free_c_z, self._Pz)
             return out.reshape(-1)
@@ -647,7 +640,7 @@ class ShardedTransfer:
             core, mesh=self.jmesh,
             in_specs=(self._zspec, P(AXIS), P(AXIS), P(AXIS, None, None)),
             out_specs=self._zspec)
-        with _precision(self.t.matmul_precision):
+        with precision_context(self.t.matmul_precision):
             out = sm(r_fine.reshape(self.fine_sl.grid_shape_pad),
                      self._free_f_z, self._free_c_z, self._Pzt)
         return out.reshape(-1)

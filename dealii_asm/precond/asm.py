@@ -23,6 +23,7 @@ import numpy as np
 
 from ..fem.dofs import DofHandler
 from ..fem.patches import element_patch_indices, vertex_patch_indices
+from ..utils.jitutils import precision_context
 from .fdm import (
     FDMCollection,
     build_fdm_collection,
@@ -33,13 +34,21 @@ from .fdm import (
 )
 
 
-# Precision of the FDM applies' f32 matmuls (the eigen-transforms).  TF32
-# operands: measured on the H100 at 17M DoF, the apply takes 1.67 ms against
-# 2.79 ms at "highest" (rel-L2 1.0e-3 against f64 instead of 1.2e-7), and
-# the flagship solve keeps its 5 iterations (PERF.md, "Precision on the
-# card").  The FDM only preconditions the smoother; the level operator it
-# smooths stays at true f32.
-FDM_MATMUL_PRECISION = "tensorfloat32"
+# Default precision of the FDM applies' f32 matmuls (the eigen-transforms):
+# true f32.  A config may select TF32 for its FDM smoother
+# ("matmul precision": "tensorfloat32"): measured on the H100 at 17M DoF,
+# the apply then takes 1.67 ms against 2.79 ms (rel-L2 1.0e-3 against f64
+# instead of 1.2e-7).  The e2e configs that select it were measured to keep
+# their iteration counts (PERF.md, "Precision on the card").
+FDM_MATMUL_PRECISION = "highest"
+
+
+def fdm_matmul_precision(dtype, precision: str | None = None):
+    """Matmul precision of an FDM apply in ``dtype``: ``precision`` or the
+    default for f32 applies, none for f64 ones (their matmuls are f64)."""
+    if np.dtype(dtype) == np.float64:
+        return None
+    return precision or FDM_MATMUL_PRECISION
 
 
 def _dedup_collection(keys: np.ndarray, build,
@@ -179,6 +188,7 @@ class ASMPreconditioner:
         patch_type: str = "element",  # "element" | "vertex"
         dtype=jnp.float64,
         n_q_1d: int | None = None,
+        matmul_precision: str | None = None,
     ):
         if weighting_type not in ("none", "pre", "post", "symm", "ras"):
             raise ValueError(weighting_type)
@@ -189,7 +199,7 @@ class ASMPreconditioner:
         self.weighting_type = weighting_type
         self.patch_type = patch_type
         self.dtype = dtype
-        self.matmul_precision = FDM_MATMUL_PRECISION
+        self.matmul_precision = fdm_matmul_precision(dtype, matmul_precision)
 
         p = self.degree
         mesh = dofs.mesh
@@ -546,7 +556,7 @@ class ASMPreconditioner:
                                 1.0 / denom, self.dim).reshape(-1)
 
     def _vmult_impl(self, src):
-        with jax.default_matmul_precision(self.matmul_precision):
+        with precision_context(self.matmul_precision):
             return self._vmult_inner(src)
 
     def _vmult_inner(self, src):

@@ -21,8 +21,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..fem.general_dofs import GeneralDofHandler
-from .asm import (FDM_MATMUL_PRECISION, _batched_apply, _dedup_collection,
-                  build_lanes_tables, fdm_apply_lanes)
+from ..utils.jitutils import precision_context
+from .asm import (_batched_apply, _dedup_collection, build_lanes_tables,
+                  fdm_apply_lanes, fdm_matmul_precision)
 from .fdm import (fdm_1d_matrices, fdm_1d_matrices_batched,
                   vertex_patch_1d_matrices, vertex_patch_1d_matrices_batched)
 
@@ -32,7 +33,8 @@ class GeneralASMPreconditioner:
 
     def __init__(self, dofs: GeneralDofHandler, n_overlap: int = 1,
                  weighting_type: str = "post", dtype=jnp.float64,
-                 n_q_1d: int | None = None, patch_type: str = "element"):
+                 n_q_1d: int | None = None, patch_type: str = "element",
+                 matmul_precision: str | None = None):
         if weighting_type not in ("none", "pre", "post", "symm", "ras"):
             raise ValueError(weighting_type)
         if patch_type not in ("element", "vertex"):
@@ -48,7 +50,7 @@ class GeneralASMPreconditioner:
             else p - 1 + 2 * n_overlap
         self.weighting_type = weighting_type
         self.dtype = dtype
-        self.matmul_precision = FDM_MATMUL_PRECISION
+        self.matmul_precision = fdm_matmul_precision(dtype, matmul_precision)
         n = dofs.n_dofs
         mask = dofs.boundary_mask
 
@@ -170,7 +172,7 @@ class GeneralASMPreconditioner:
         return u.reshape(C, m**self.dim)
 
     def _vmult_impl(self, src):
-        with jax.default_matmul_precision(self.matmul_precision):
+        with precision_context(self.matmul_precision):
             return self._vmult_inner(src)
 
     def _vmult_inner(self, src):

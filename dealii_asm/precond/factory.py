@@ -162,6 +162,9 @@ def _create_fdm(op, params: dict, log):
                                 "global" if n_overlap > 1 else "compressed")
     if weight_sequence not in ("global", "compressed", "dg"):
         raise ValueError(f"weight sequence <{weight_sequence}> is not known!")
+    # f32 eigen-transform matmuls: "highest" unless the config selects
+    # another (precond/asm.FDM_MATMUL_PRECISION)
+    precision = get_param(params, "matmul precision", None)
     log("- Create system preconditioner: FDM")
     log(f"    - n overlap:              {n_overlap}")
     log(f"    - sub mesh approximation: {sub_mesh_approximation}")
@@ -177,7 +180,7 @@ def _create_fdm(op, params: dict, log):
         p = GeneralASMPreconditioner(
             op.dofs, n_overlap=n_overlap, weighting_type=weighting,
             patch_type="element" if element_centric else "vertex",
-            dtype=op.dtype)
+            dtype=op.dtype, matmul_precision=precision)
     else:
         p = ASMPreconditioner(
             op.dofs,
@@ -185,6 +188,7 @@ def _create_fdm(op, params: dict, log):
             weighting_type=weighting,
             patch_type="element" if element_centric else "vertex",
             dtype=op.dtype,
+            matmul_precision=precision,
         )
     p.is_symmetric = weighting in ("none", "symm")
     return p

@@ -1,4 +1,5 @@
-"""jit helpers: constant hoisting and the persistent compilation cache.
+"""jit helpers: constant hoisting, the persistent compilation cache, and
+the matmul-precision context of traced applies.
 
 ``jax.jit`` of a solver loop that closes over operator/preconditioner tables
 embeds every captured device array into the lowered program as a literal
@@ -17,6 +18,7 @@ constants; concrete arrays stay embedded.)
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 # the checkout root: the compile cache lives at a fixed path inside it (the
@@ -37,6 +39,15 @@ def enable_compilation_cache():
         jax.config.update("jax_compilation_cache_dir",
                           os.path.join(_ROOT, ".jax_cache"))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+
+def precision_context(name):
+    """Context naming the matmul precision of a traced apply (f32 matmuls
+    that name none may run in TF32 on the GPU); no-op for None."""
+    import jax
+
+    return (jax.default_matmul_precision(name) if name
+            else contextlib.nullcontext())
 
 
 def jit_hoist_consts(fn, *example_args):

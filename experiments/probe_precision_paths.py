@@ -204,17 +204,17 @@ def section_f32(args):
 def section_its(args):
     """Solves with the FDM and MG-level matmul precisions varied."""
     import dealii_asm.models.poisson as poisson
-    import dealii_asm.precond.asm as asm_mod
 
     for cfg, fdm, level in (
             ("e2e_aniso_q4.json", "highest", "highest"),
             ("e2e_aniso_q4.json", "tensorfloat32", "highest"),
             ("e2e_aniso_q4.json", "tensorfloat32", "tensorfloat32"),
             ("e2e_kershaw_q4.json", "tensorfloat32", "tensorfloat32")):
-        asm_mod.FDM_MATMUL_PRECISION = fdm
+        params = json.load(open(f"experiments/{cfg}"))
+        smoother = params["preconditioner"]["mg smoother"]
+        smoother["preconditioner"]["matmul precision"] = fdm
         poisson.LEVEL_MATMUL_PRECISION = level
-        r = poisson.run_config(json.load(open(f"experiments/{cfg}")),
-                               log=lambda *_: None)
+        r = poisson.run_config(params, log=lambda *_: None)
         report(case="solve", config=cfg, fdm_precision=fdm,
                level_precision=level, its=r["it"], converged=r["converged"],
                solve_s=r["time"], setup_s=r["setup_time"])

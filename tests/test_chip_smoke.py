@@ -56,7 +56,60 @@ def test_failed_iteration_contract_exits(monkeypatch):
     params["n refinements"] = 1
     params["solver"]["best of"] = 1
     monkeypatch.setattr(chip_smoke, "peak_bytes", lambda dev: 0)
+    monkeypatch.setattr(chip_smoke, "live_bytes", lambda dev: 0)
     r = chip_smoke.solve("tiny", params, lambda its: its > 0)
     assert r["converged"]
     with pytest.raises(SystemExit, match="iteration contract"):
         chip_smoke.solve("tiny", params, lambda its: False)
+
+
+@pytest.mark.parametrize("config", ["e2e_aniso_q4.json", "e2e_kershaw_q4.json",
+                                    "e2e_ball_q4.json"])
+def test_smoke_configs_select_tf32_fdm(config):
+    """The three smoke solves were measured on the card with TF32 FDM
+    applies; their configs name it."""
+    params = chip_smoke.load_config(config)
+    assert chip_smoke.fdm_precision(params) == "tensorfloat32"
+
+
+def test_solve_line_says_whose_peak(monkeypatch, capsys):
+    """A solve that does not raise the process's high-water mark reports
+    it with peak_is_own false; each line says what was live before it."""
+    params = chip_smoke.load_config("e2e_aniso_q4.json")
+    params["n refinements"] = 1
+    params["solver"]["best of"] = 1
+    peaks = iter([5, 7, 7, 7])
+    monkeypatch.setattr(chip_smoke, "peak_bytes", lambda dev: next(peaks))
+    monkeypatch.setattr(chip_smoke, "live_bytes", lambda dev: 3)
+    chip_smoke.solve("first", params, lambda its: its > 0)
+    chip_smoke.solve("second", params, lambda its: its > 0)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert [(d["peak_bytes_in_use"], d["peak_is_own"], d["bytes_in_use_before"])
+            for d in lines] == [(7, True, 3), (7, False, 3)]
+
+
+def test_four_cards_phase_compares_with_one_card(monkeypatch, capsys):
+    """--four-cards runs the flagship sharded over four devices and on one,
+    with the same iteration count (here at a small size, on CPU devices)."""
+    orig = chip_smoke.load_config
+
+    def small(name):
+        params = orig(name)
+        params["n refinements"] = 3
+        params["solver"]["best of"] = 1
+        return params
+
+    from dealii_asm.models.poisson import run_config
+
+    its = run_config(small("e2e_aniso_q4.json"), log=lambda *_: None)["it"]
+    monkeypatch.setattr(chip_smoke, "load_config", small)
+    monkeypatch.setattr(chip_smoke, "peak_bytes", lambda dev: 1 << 40)
+    monkeypatch.setattr(chip_smoke, "live_bytes", lambda dev: 0)
+    monkeypatch.setattr(chip_smoke, "FLAGSHIP_ITS", its)
+    chip_smoke.four_cards()
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert [d["its"] for d in lines if "its" in d] == [its, its]
+    peaks = [d for d in lines if "peak_bytes_in_use_per_card" in d]
+    assert len(peaks[0]["peak_bytes_in_use_per_card"]) == 4

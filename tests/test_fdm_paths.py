@@ -91,19 +91,70 @@ def test_global_fdm_apply_matches_dense_oracle(cells, p, wt):
     assert rel_l2(got, fdm_oracle(dofs, wt, np.float32(x))) < 1e-5
 
 
+def _dot_precisions(fn, x):
+    hlo = jax.jit(fn).lower(x).as_text()
+    return [ln for ln in hlo.splitlines() if "dot_general" in ln]
+
+
 def test_fdm_matmul_precision_is_explicit():
-    """The f32 FDM applies name their matmul precision (TF32, chosen by
-    measurement); a traced apply carries it on every dot, and the level
-    operator's dots stay at HIGHEST."""
+    """The f32 FDM applies name their matmul precision (true f32 unless a
+    config selects TF32); a traced apply carries it on every dot, as do the
+    level operator's."""
     dofs, asm = _setup((3, 3, 3), 3, dtype=jnp.float32)
-    assert asm.matmul_precision == "tensorfloat32"
+    assert asm.matmul_precision == "highest"
+    tf32 = ASMPreconditioner(dofs, n_overlap=1, weighting_type="symm",
+                             dtype=jnp.float32,
+                             matmul_precision="tensorfloat32")
     op = LaplaceOperator(dofs, dtype=jnp.float32, matmul_precision="highest")
     x = jnp.ones(dofs.n_dofs, jnp.float32)
-    for fn, want in ((asm.vmult_traceable, "[HIGH, HIGH]"),
+    for fn, want in ((asm.vmult_traceable, "[HIGHEST, HIGHEST]"),
+                     (tf32.vmult_traceable, "[HIGH, HIGH]"),
                      (op.vmult_traceable, "[HIGHEST, HIGHEST]")):
-        hlo = jax.jit(fn).lower(x).as_text()
-        dots = [ln for ln in hlo.splitlines() if "dot_general" in ln]
+        dots = _dot_precisions(fn, x)
         assert dots and all(want in ln for ln in dots)
+
+
+@pytest.mark.parametrize("dtype,asked,want", [
+    (jnp.float32, None, "highest"),
+    (jnp.float32, "tensorfloat32", "tensorfloat32"),
+    (jnp.float64, None, None),
+    (jnp.float64, "tensorfloat32", None)])
+def test_fdm_matmul_precision_applies_to_f32_only(dtype, asked, want):
+    """f64 FDM applies name no precision whatever the config asks: their
+    matmuls are f64 and the dots carry the default."""
+    dofs = DofHandler(StructuredMesh(3, (3, 3, 3)), 2)
+    asm = ASMPreconditioner(dofs, n_overlap=1, weighting_type="symm",
+                            dtype=dtype, matmul_precision=asked)
+    assert asm.matmul_precision == want
+    if want is None:
+        dots = _dot_precisions(asm.vmult_traceable,
+                               jnp.ones(dofs.n_dofs, dtype))
+        assert dots and not any("HIGH" in ln for ln in dots)
+
+
+@pytest.mark.parametrize("general", [False, True])
+def test_fdm_matmul_precision_follows_config(general):
+    """The FDM smoother's "matmul precision" key reaches the structured and
+    the unstructured ASM; without it the default holds."""
+    from dealii_asm.precond.factory import create_system_preconditioner
+
+    if general:
+        from dealii_asm.fem.general_dofs import GeneralDofHandler
+        from dealii_asm.mesh.unstructured import hyper_ball_balanced
+        from dealii_asm.ops.laplace_general import GeneralLaplaceOperator
+
+        op = GeneralLaplaceOperator(
+            GeneralDofHandler(hyper_ball_balanced(3), 2), dtype=jnp.float32)
+    else:
+        op = LaplaceOperator(DofHandler(StructuredMesh(3, (2, 2, 2)), 2),
+                             dtype=jnp.float32)
+    params = {"type": "FDM", "n overlap": 1, "weighting type": "symm"}
+    quiet = lambda *_: None
+    assert create_system_preconditioner(
+        op, params, quiet).matmul_precision == "highest"
+    params["matmul precision"] = "tensorfloat32"
+    assert create_system_preconditioner(
+        op, params, quiet).matmul_precision == "tensorfloat32"
 
 
 def test_lanes_fdm_apply_on_deformed_mesh_matches_dense_oracle():
